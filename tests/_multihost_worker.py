@@ -25,15 +25,15 @@ def main():
 
     import jax
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(repo, ".jax_cache"))
+    from nanomod import use_compile_cache
+    use_compile_cache()
     jax.distributed.initialize(coordinator_address=f"127.0.0.1:{port}",
                                num_processes=nprocs, process_id=rank)
     assert jax.process_count() == nprocs
 
     if mode == "detect":
-        from nanomod_tpu.config import DetectConfig, RankConfig
-        from nanomod_tpu.detect import run_detect
+        from nanomod.config import DetectConfig, RankConfig
+        from nanomod.detect import run_detect
 
         cfg = DetectConfig(
             wrk_base1=os.path.join(root, "control"),
@@ -46,8 +46,8 @@ def main():
         # position-sharded merge over the real backend: one all-to-all
         # routes observations to range owners; ranks write output shards
         # and rank 0 concatenates into out_sharded/mh_sign_test.txt
-        from nanomod_tpu.config import DetectConfig, RankConfig, StatConfig
-        from nanomod_tpu.detect import run_detect
+        from nanomod.config import DetectConfig, RankConfig, StatConfig
+        from nanomod.detect import run_detect
 
         cfg = DetectConfig(
             wrk_base1=os.path.join(root, "control"),
@@ -61,8 +61,8 @@ def main():
         print(f"TOP_SITE={sites[0].chrom}:{sites[0].strand}:{sites[0].pos}",
               flush=True)
     elif mode == "annotate":
-        from nanomod_tpu.config import AnnotateConfig
-        from nanomod_tpu.resquiggle import annotate_folder
+        from nanomod.config import AnnotateConfig
+        from nanomod.resquiggle import annotate_folder
 
         cfg = AnnotateConfig(
             wrk_base1=os.path.join(root, "reads_multi"),

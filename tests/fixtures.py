@@ -20,13 +20,10 @@ import hashlib
 
 import numpy as np
 
-from nanomod_tpu.io.fast5 import CORRECTED_EVENTS_DTYPE, write_corrected_events
-from nanomod_tpu.io.fasta import revcomp
-
-try:
-    import h5py
-except ImportError:
-    h5py = None
+from nanomod.harness.synth import write_corrected_files
+from nanomod.io.fast5 import CORRECTED_EVENTS_DTYPE
+from nanomod.io.fasta import revcomp
+from nanomod.io.h5write import write_h5
 
 BASES = np.array(list("ACGT"))
 
@@ -78,13 +75,11 @@ def write_corrected_fixture(path, chrom, genome, strand, start, length, rng,
     ev = simulate_corrected_read(chrom, genome, strand, start, length, rng,
                                  mod_pos=mod_pos, mod_delta=mod_delta,
                                  noise=noise)
-    with h5py.File(path, "w"):
-        pass
-    write_corrected_events(
-        path, chrom, start, strand, ev,
+    write_corrected_files([path], [dict(
+        chrom=chrom, start=start, strand=strand, events=ev,
         read_alignment=ev["base"], genome_alignment=ev["base"],
-        num_matches=length,
-    )
+        clipped_start=0, clipped_end=0, num_insertions=0, num_deletions=0,
+        num_matches=length, num_mismatches=0)], nthreads=1)
     return path
 
 
@@ -210,25 +205,28 @@ def simulate_raw_read(seq: str, rng, mod_offsets=None, mod_delta_pa=0.0,
 def write_raw_fixture(path, seq, rng, read_number=0, **kw):
     """One raw FAST5 with channel info, Raw signal, and albacore2 basecalls."""
     dac, events, bc_seq = simulate_raw_read(seq, rng, **kw)
-    with h5py.File(path, "w") as f:
-        ch = f.create_group("UniqueGlobalKey/channel_id")
-        ch.attrs["digitisation"] = DIGITISATION
-        ch.attrs["offset"] = OFFSET
-        ch.attrs["range"] = RANGE
-        ch.attrs["sampling_rate"] = SAMPLING_RATE
-        ch.attrs["channel_number"] = b"1"
-        rg = f.create_group(f"Raw/Reads/Read_{read_number}")
-        rg.attrs["start_time"] = 0
-        rg.attrs["read_id"] = f"read-{read_number:06d}-{os.path.basename(path)}"
-        rg.create_dataset("Signal", data=dac)
-        bc = f.create_group("Analyses/Basecall_1D_000")
-        bc.attrs["name"] = b"ONT Albacore Sequencing Software"
-        bc.attrs["version"] = b"2.3.1"
-        bt = bc.create_group("BaseCalled_template")
-        bt.create_dataset("Events", data=events)
-        fq = f"@read-{read_number:06d}\n{bc_seq}\n+\n{'!' * len(bc_seq)}\n"
-        bt.create_dataset("Fastq", data=fq.encode())
+    fq = f"@read-{read_number:06d}\n{bc_seq}\n+\n{'!' * len(bc_seq)}\n"
+    write_h5(path, raw_fast5_tree(
+        dac, events, fq.encode(), read_number,
+        f"read-{read_number:06d}-{os.path.basename(path)}"))
     return path, bc_seq
+
+
+def raw_fast5_tree(dac, events, fastq: bytes, read_number: int,
+                   read_id: str) -> dict:
+    """The albacore-2 raw FAST5 layout as an io.h5write tree."""
+    return {
+        "UniqueGlobalKey": {"channel_id": {"@attrs": {
+            "digitisation": DIGITISATION, "offset": OFFSET, "range": RANGE,
+            "sampling_rate": SAMPLING_RATE, "channel_number": b"1"}}},
+        "Raw": {"Reads": {f"Read_{read_number}": {
+            "@attrs": {"start_time": 0, "read_id": read_id},
+            "Signal": dac}}},
+        "Analyses": {"Basecall_1D_000": {
+            "@attrs": {"name": b"ONT Albacore Sequencing Software",
+                       "version": b"2.3.1"},
+            "BaseCalled_template": {"Events": events, "Fastq": fastq}}},
+    }
 
 
 def make_raw_dataset(folder, chrom, genome, n_reads, seed, mod_pos=None,

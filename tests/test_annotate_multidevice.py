@@ -14,11 +14,11 @@ import os
 import numpy as np
 
 from fixtures import make_genome, make_raw_dataset
-from nanomod_tpu.config import AnnotateConfig, replace
-from nanomod_tpu.io.fast5 import read_corrected_events
-from nanomod_tpu.io.fasta import FastaIndex
-from nanomod_tpu.resquiggle import annotate_files
-from nanomod_tpu.resquiggle.seed import SeedIndex
+from nanomod.config import AnnotateConfig, replace
+from nanomod.io.fast5 import read_corrected_events
+from nanomod.io.fasta import FastaIndex
+from nanomod.resquiggle import annotate_files
+from nanomod.resquiggle.seed import SeedIndex
 
 
 def _run(tmp_path, tag, n_devices, n_reads=48):

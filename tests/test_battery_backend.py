@@ -2,8 +2,8 @@
 
 The battery has two compute backends producing bit-identical statistics:
 the tiled device kernels (stats/kernels.py) and the native host battery
-(native/sort_core.cpp nm_battery_milli), auto-selected by link speed in
-production (stats/battery.battery_backend).  These tests pin the
+(native/sort_core.cpp nm_battery_milli); stats/battery.battery_backend
+picks the device on the GPU and the host on the CPU.  These tests pin the
 bit-parity contract on adversarial pools: heavy ties, tiny/degenerate
 counts, capped-KS rows, mstd capture, and the non-milli fallback.
 Replaces the reference's per-position scipy loop semantics
@@ -13,9 +13,9 @@ Replaces the reference's per-position scipy loop semantics
 import numpy as np
 import pytest
 
-from nanomod_tpu.config import StatConfig
-from nanomod_tpu.native.build import load_native
-from nanomod_tpu.stats.battery import run_battery
+from nanomod.config import StatConfig
+from nanomod.native.build import load_native
+from nanomod.stats.battery import run_battery
 
 FIELDS = ("stu", "pu", "stt", "pt", "stks", "pks")
 
@@ -110,11 +110,38 @@ def test_non_milli_values_fall_back_to_device():
 
 
 def test_backend_env_override(monkeypatch):
-    import nanomod_tpu.stats.battery as bat
+    import nanomod.stats.battery as bat
     monkeypatch.setenv("NANOMOD_BATTERY_BACKEND", "host")
     assert bat.battery_backend() == "host"
     monkeypatch.setenv("NANOMOD_BATTERY_BACKEND", "device")
     assert bat.battery_backend() == "device"
+
+
+@pytest.mark.parametrize("platform,want", [("gpu", "device"),
+                                           ("cpu", "host")])
+def test_backend_rule_follows_platform(monkeypatch, platform, want):
+    """No override: the platform decides, and nothing is run to decide."""
+    import jax
+
+    import nanomod.stats.battery as bat
+    from nanomod.stats import kernels
+
+    def no_kernel(*a, **k):
+        raise AssertionError("backend choice must not run the battery")
+
+    monkeypatch.delenv("NANOMOD_BATTERY_BACKEND", raising=False)
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    monkeypatch.setattr(kernels, "battery_components_packed_milli", no_kernel)
+    monkeypatch.setattr(bat, "_run_battery_host", no_kernel)
+    assert bat.battery_backend() == want
+
+
+@pytest.mark.parametrize("value", ["auto", "Host", "native", "gpu"])
+def test_backend_unknown_override_is_an_error(monkeypatch, value):
+    import nanomod.stats.battery as bat
+    monkeypatch.setenv("NANOMOD_BATTERY_BACKEND", value)
+    with pytest.raises(ValueError, match="NANOMOD_BATTERY_BACKEND"):
+        bat.battery_backend()
 
 
 def test_host_idx_gather_matches_materialized():

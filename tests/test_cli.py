@@ -5,7 +5,7 @@ import os
 import pytest
 
 from fixtures import make_genome, make_corrected_dataset, make_raw_dataset
-from nanomod_tpu.cli import main, build_parser
+from nanomod.cli import main, build_parser
 
 
 def test_parser_mirrors_reference_args():
@@ -46,7 +46,7 @@ def test_cli_annotate_end_to_end(tmp_path):
     reads = str(tmp_path / "reads")
     make_raw_dataset(reads, chrom, genome, n_reads=4, seed=7, error_rate=0.02)
     main(["Annotate", "--wrkBase1", reads, "--Ref", fasta])
-    from nanomod_tpu.io.fast5 import read_corrected_events
+    from nanomod.io.fast5 import read_corrected_events
     ok = sum(read_corrected_events(os.path.join(reads, f)) is not None
              for f in sorted(os.listdir(reads)))
     assert ok >= 3

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 
 from fixtures import make_genome, make_corrected_dataset
-from nanomod_tpu.config import DetectConfig, StatConfig, RankConfig, replace
-from nanomod_tpu.detect import run_detect, ingest_group, detect_from_pools, save_sign_test
+from nanomod.config import DetectConfig, StatConfig, RankConfig, replace
+from nanomod.detect import run_detect, ingest_group, detect_from_pools, save_sign_test
 
 MOD_POS = 173          # 0-based
 MOD_STRAND_DELTA = 1.0
@@ -118,10 +118,10 @@ def test_native_formatter_parity(tmp_path):
     the Python %-format spec on adversarial values: NaN (both signs), inf,
     negative zero, denormals, huge magnitudes, exponent >= 100, and exact
     rounding-boundary decimals."""
-    from nanomod_tpu.native.build import native_available
-    from nanomod_tpu.rank.ranking import SignTable
-    from nanomod_tpu.stats.battery import TestResult
-    from nanomod_tpu.config import DetectConfig, StatConfig, replace
+    from nanomod.native.build import native_available
+    from nanomod.rank.ranking import SignTable
+    from nanomod.stats.battery import TestResult
+    from nanomod.config import DetectConfig, StatConfig, replace
 
     if not native_available("format_core"):
         pytest.skip("no native toolchain")
@@ -173,7 +173,7 @@ def test_pool_capacity_cap():
     keep everything and deep positions keep a deterministic subsample."""
     import numpy as np
 
-    from nanomod_tpu.accum.pools import PoolBuilder
+    from nanomod.accum.pools import PoolBuilder
 
     def build(cap):
         b = PoolBuilder()
@@ -211,7 +211,7 @@ def test_native_pack_matches_numpy_pipeline():
 
     import numpy as np
 
-    from nanomod_tpu.accum import pools as P
+    from nanomod.accum import pools as P
 
     if not P.load_native_available():
         return

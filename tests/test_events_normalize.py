@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from nanomod_tpu.signal.events import (EventError, extract_albacore1,
+from nanomod.signal.events import (EventError, extract_albacore1,
                                        extract_albacore2, extract_guppy)
-from nanomod_tpu.signal.normalize import (kmer_shift_scale, load_kmer_model,
+from nanomod.signal.normalize import (kmer_shift_scale, load_kmer_model,
                                           mad_normalize)
 
 A2_DTYPE = np.dtype([("mean", "<f8"), ("stdv", "<f8"), ("start", "<u8"),

@@ -14,12 +14,12 @@ import numpy as np
 import pytest
 
 from fixtures import make_genome, make_raw_dataset
-from nanomod_tpu.config import AnnotateConfig, replace
-from nanomod_tpu.io.fasta import FastaIndex
-from nanomod_tpu.io.fast5 import read_corrected_events
-from nanomod_tpu.resquiggle import annotate_files
-from nanomod_tpu.resquiggle.external import cigar_to_ops, parse_sam
-from nanomod_tpu.resquiggle.seed import SeedIndex
+from nanomod.config import AnnotateConfig, replace
+from nanomod.io.fasta import FastaIndex
+from nanomod.io.fast5 import read_corrected_events
+from nanomod.resquiggle import annotate_files
+from nanomod.resquiggle.external import cigar_to_ops, parse_sam
+from nanomod.resquiggle.seed import SeedIndex
 
 FAKE_MINIMAP2 = '''#!/usr/bin/env python3
 """Fake minimap2: exact/approximate substring alignment, SAM to stdout.

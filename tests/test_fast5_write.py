@@ -13,11 +13,11 @@ import h5py
 import numpy as np
 import pytest
 
-from nanomod_tpu.io.fast5 import (CORRECTED_EVENTS_DTYPE,
+from nanomod.io.fast5 import (CORRECTED_EVENTS_DTYPE,
                                   read_corrected_events,
                                   write_corrected_events)
-from nanomod_tpu.native.build import native_available
-from nanomod_tpu.native.fast5_write_bind import write_corrected_batch_native
+from nanomod.native.build import native_available
+from nanomod.native.fast5_write_bind import write_corrected_batch_native
 
 pytestmark = pytest.mark.skipif(not native_available("fast5_write"),
                                 reason="no native toolchain")
@@ -109,7 +109,7 @@ def test_readback_via_engine_reader(tmp_path):
     assert rd.chrom == "spel" and rd.strand == "-"
     np.testing.assert_allclose(rd.norm_mean, pay["events"]["norm_mean"])
     # native batch reader too
-    from nanomod_tpu.native.fast5_bind import read_corrected_batch
+    from nanomod.native.fast5_bind import read_corrected_batch
     nat = read_corrected_batch([path], nthreads=1)
     if nat is not None:
         assert nat[0] is not None

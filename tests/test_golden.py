@@ -1,7 +1,7 @@
 """Reference-golden parity: detect output must BYTE-match the checked-in
 golden `_sign_test.txt` files produced by the independent scipy-only oracle
 (tests/golden/make_golden.py — reference formulas from myDetect.py, no
-nanomod_tpu statistics code).
+nanomod statistics code).
 
 Covers all three testMethods, the neighborPvalues=0 KS-copy edge
 (myDetect.py:413), the capped repeated-subsample KS, the _meanstd.cvs file,
@@ -14,9 +14,9 @@ import os
 import numpy as np
 import pytest
 
-from nanomod_tpu.accum.pools import PoolBuilder
-from nanomod_tpu.config import DetectConfig, RankConfig, StatConfig
-from nanomod_tpu.detect import detect_from_pools, run_detect, save_sign_test
+from nanomod.accum.pools import PoolBuilder
+from nanomod.config import DetectConfig, RankConfig, StatConfig
+from nanomod.detect import detect_from_pools, run_detect, save_sign_test
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -97,7 +97,7 @@ def test_golden_end_to_end_fast5(tmp_path):
     bytes (exercises the writer/reader strand + coordinate bookkeeping)."""
     import h5py
 
-    from nanomod_tpu.io.fast5 import (CORRECTED_EVENTS_DTYPE,
+    from nanomod.io.fast5 import (CORRECTED_EVENTS_DTYPE,
                                       write_corrected_events)
 
     for gi, group in enumerate(("group1", "group2")):

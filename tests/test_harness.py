@@ -7,8 +7,8 @@ import numpy as np
 import pytest
 
 from fixtures import make_genome, make_corrected_dataset
-from nanomod_tpu.config import SimulateConfig, RankConfig, replace
-from nanomod_tpu.harness.simulate import (group_ranks, load_group_reads,
+from nanomod.config import SimulateConfig, RankConfig, replace
+from nanomod.harness.simulate import (group_ranks, load_group_reads,
                                           rank_bins, run_downsampling,
                                           run_simulat2, run_simulate)
 
@@ -100,7 +100,7 @@ def test_simulate_grid_single_process(grid_data):
     """The (mi, mj, mk) grid covers range(max_int) pairs with
     mk = (mi + foldersep) %% max0, reference job naming, and the merge
     groups ranks by percentage."""
-    from nanomod_tpu.harness.simulate import (merge_grid_outputs,
+    from nanomod.harness.simulate import (merge_grid_outputs,
                                               run_simulate_grid)
     root, chrom, ctrl, case = grid_data
     cfg = _grid_cfg(root, chrom, ctrl, case, "out_grid")
@@ -126,7 +126,7 @@ def test_simulate_grid_two_processes(grid_data):
     import subprocess
     import sys
 
-    from nanomod_tpu.harness.simulate import merge_grid_outputs
+    from nanomod.harness.simulate import merge_grid_outputs
 
     root, chrom, ctrl, case = grid_data
     cfg = _grid_cfg(root, chrom, ctrl, case, "out_grid2")
@@ -135,8 +135,8 @@ def test_simulate_grid_two_processes(grid_data):
         "import jax; jax.config.update('jax_platforms', 'cpu')\n"
         "import sys\n"
         "sys.path.insert(0, %r)\n"
-        "from nanomod_tpu.config import SimulateConfig, RankConfig\n"
-        "from nanomod_tpu.harness.simulate import run_simulate_grid\n"
+        "from nanomod.config import SimulateConfig, RankConfig\n"
+        "from nanomod.harness.simulate import run_simulate_grid\n"
         "cfg = SimulateConfig(wrk_base1=%r, wrk_base2=%r, out_folder=%r,\n"
         "    target_chr=%r, target_pos=%d, target_strand='-',\n"
         "    percentages=(0.9,), random_times=2, foldersep=1,\n"
@@ -154,7 +154,7 @@ def test_simulate_grid_two_processes(grid_data):
     fids = ["mod_0_0_1_0.90000", "mod_1_0_0_0.90000"]
     grouped, labels = merge_grid_outputs(cfg, fids)
     # same dataset + seeds as the single-process grid -> same merged bins
-    from nanomod_tpu.harness.simulate import run_simulate_grid
+    from nanomod.harness.simulate import run_simulate_grid
     cfg1 = _grid_cfg(root, chrom, ctrl, case, "out_grid")
     if not os.path.isdir(cfg1.out_folder):      # test-order independence
         run_simulate_grid(cfg1)
@@ -165,7 +165,7 @@ def test_simulate_grid_two_processes(grid_data):
 def test_simulat2_sweep_sharded(sim_data):
     """CaseSize ladder shards round-robin across processes; the runType-3
     merge over per-size .output files recovers the full sweep."""
-    from nanomod_tpu.harness.simulate import (run_simulat2_sweep,
+    from nanomod.harness.simulate import (run_simulat2_sweep,
                                               summarize_outputs)
     root, chrom, case, ctrl, case_reads, ctrl_reads = sim_data
     cfg = _cfg(root, chrom, case, ctrl, percentage=0.9, random_times=1,
@@ -211,14 +211,14 @@ def test_rank_bins_cover_all_ranks():
 
 def test_plots_render(sim_data, tmp_path):
     root, chrom, case, ctrl, case_reads, ctrl_reads = sim_data
-    from nanomod_tpu.harness.plots import plot_rank_histogram
+    from nanomod.harness.plots import plot_rank_histogram
     grouped, labels = group_ranks({0.3: [1, 2, 3], 0.5: [1, 1, 1]})
     p = plot_rank_histogram(grouped, labels, str(tmp_path / "hist.png"))
     assert os.path.getsize(p) > 1000
 
 
 def test_plot_rank_histogram_grid(tmp_path):
-    from nanomod_tpu.harness.plots import plot_rank_histogram_grid
+    from nanomod.harness.plots import plot_rank_histogram_grid
     grouped, labels = group_ranks({0.3: [1, 2, 3], 0.5: [1, 1, 1]})
     panels = {f"mod{i}" for i in range(9)}
     panels = {name: (grouped, labels) for name in sorted(panels)}
@@ -237,10 +237,10 @@ def test_plot_top_sites_density_and_violin(tmp_path):
     (ref Base_Most_Significant_Plot.R violin :5-85 / density :86-188)."""
     import numpy as np
     from fixtures import make_genome, make_corrected_dataset
-    from nanomod_tpu.config import DetectConfig, replace
-    from nanomod_tpu.detect import ingest_group, detect_from_pools
-    from nanomod_tpu.harness.plots import plot_top_sites
-    from nanomod_tpu.rank.ranking import top_sites
+    from nanomod.config import DetectConfig, replace
+    from nanomod.detect import ingest_group, detect_from_pools
+    from nanomod.harness.plots import plot_top_sites
+    from nanomod.rank.ranking import top_sites
 
     chrom, genome = make_genome(length=120, seed=21)
     ctrl = str(tmp_path / "c1")
@@ -268,7 +268,7 @@ def test_flat_reads_pools_match_per_read_rebuild(sim_data):
     rebuild was the last interpreted hot loop)."""
     import random
 
-    from nanomod_tpu.harness.simulate import (FlatReads, _pools_from_reads,
+    from nanomod.harness.simulate import (FlatReads, _pools_from_reads,
                                               pools_from_selections)
 
     root, chrom, case_dir, control_dir, reads, other = sim_data
@@ -310,7 +310,7 @@ def test_flat_reads_wide_span_raw_fallback():
     per-read rebuild."""
     import types
 
-    from nanomod_tpu.harness.simulate import (FlatReads, _pools_from_reads,
+    from nanomod.harness.simulate import (FlatReads, _pools_from_reads,
                                               pools_from_selections)
 
     def mk(start, seed):
@@ -335,7 +335,7 @@ def test_flat_reads_wide_span_raw_fallback():
 
 
 def test_canonical_key_codec_roundtrip():
-    from nanomod_tpu.accum.pools import (build_canonical_keys,
+    from nanomod.accum.pools import (build_canonical_keys,
                                          decode_canonical_keys,
                                          pack_observations,
                                          pack_sorted_keys)

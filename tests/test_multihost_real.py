@@ -10,7 +10,7 @@ the single-process run over the union of the work.
     single-process annotation of the same dataset, file for file, and the
     merged stats report shows the global ok-count on every rank.
 
-This is the TPU-native replacement for the reference's qsub fan-out + file
+This is the jax.distributed replacement for the reference's qsub fan-out + file
 merge (ref bin/scripts/mySimulate.py:344-457) and its SGE-scaled Annotate
 (ref bin/scripts/myRefBaseSignalAnnotation.py:1452-1483).
 """
@@ -75,8 +75,8 @@ def dataset(tmp_path_factory):
 
 
 def _single_host_bytes(root):
-    from nanomod_tpu.config import DetectConfig, RankConfig
-    from nanomod_tpu.detect import run_detect
+    from nanomod.config import DetectConfig, RankConfig
+    from nanomod.detect import run_detect
     cfg = DetectConfig(
         wrk_base1=os.path.join(root, "control"),
         wrk_base2=os.path.join(root, "case"),
@@ -106,8 +106,8 @@ def test_two_process_sharded_detect_matches_single_process(dataset):
     """merge_mode='sharded' over the real backend: observations route once
     to range owners (jax all-to-all over Gloo), each rank computes/writes
     its range, rank 0 concatenates — byte-identical to single-host."""
-    from nanomod_tpu.config import DetectConfig, RankConfig, StatConfig
-    from nanomod_tpu.detect import run_detect
+    from nanomod.config import DetectConfig, RankConfig, StatConfig
+    from nanomod.detect import run_detect
 
     root = dataset
     cfg = DetectConfig(
@@ -135,9 +135,9 @@ def test_two_process_sharded_detect_matches_single_process(dataset):
 
 
 def test_two_process_annotate_matches_single_process(tmp_path):
-    from nanomod_tpu.config import AnnotateConfig
-    from nanomod_tpu.io.fast5 import read_corrected_events
-    from nanomod_tpu.resquiggle import annotate_folder
+    from nanomod.config import AnnotateConfig
+    from nanomod.io.fast5 import read_corrected_events
+    from nanomod.resquiggle import annotate_folder
 
     root = str(tmp_path)
     chrom, genome = make_genome(length=500, seed=11)

@@ -4,9 +4,9 @@ specification (resquiggle/annotate.py) on randomized reads."""
 import numpy as np
 import pytest
 
-from nanomod_tpu.native.annotate_bind import native_annotate
-from nanomod_tpu.native.build import native_available
-from nanomod_tpu.resquiggle.annotate import (Columns, GenomeEvents,
+from nanomod.native.annotate_bind import native_annotate
+from nanomod.native.build import native_available
+from nanomod.resquiggle.annotate import (Columns, GenomeEvents,
                                              annotate_read, group_indels,
                                              mark_repeat_indels)
 
@@ -113,9 +113,9 @@ def test_native_speedup():
 def test_native_traceback_matches_python():
     import jax
     import numpy as np
-    from nanomod_tpu.resquiggle.banded import (banded_sw, traceback,
+    from nanomod.resquiggle.banded import (banded_sw, traceback,
                                                traceback_native)
-    from nanomod_tpu.resquiggle.seed import encode
+    from nanomod.resquiggle.seed import encode
 
     rng = np.random.default_rng(3)
     genome = "".join(rng.choice(BASES, 800))
@@ -147,7 +147,7 @@ def test_native_traceback_matches_python():
 
 def _planted_batch(rng, n_reads, genome_len=900, frag=(80, 520)):
     """Random genome + error-planted fragments encoded for banded_sw."""
-    from nanomod_tpu.resquiggle.seed import encode
+    from nanomod.resquiggle.seed import encode
 
     genome = "".join(rng.choice(BASES, genome_len))
     reads = []
@@ -182,7 +182,7 @@ def _planted_batch(rng, n_reads, genome_len=900, frag=(80, 520)):
 def test_batch_traceback_packed_matches_python():
     """traceback_batch (packed and unpacked) must reproduce the Python
     walker op-for-op across a whole batch."""
-    from nanomod_tpu.resquiggle.banded import (banded_sw, ops_to_arrays,
+    from nanomod.resquiggle.banded import (banded_sw, ops_to_arrays,
                                                pack_tb, traceback,
                                                traceback_batch_native)
 
@@ -210,11 +210,11 @@ def test_annotate_one_native_matches_python_path(tmp_path):
     import os
 
     from fixtures import make_genome, make_raw_dataset
-    from nanomod_tpu.config import AnnotateConfig, replace
-    from nanomod_tpu.io.fasta import FastaIndex
-    from nanomod_tpu.resquiggle.pipeline import (align_batch, annotate_one,
+    from nanomod.config import AnnotateConfig, replace
+    from nanomod.io.fasta import FastaIndex
+    from nanomod.resquiggle.pipeline import (align_batch, annotate_one,
                                                  prepare_read)
-    from nanomod_tpu.resquiggle.seed import SeedIndex
+    from nanomod.resquiggle.seed import SeedIndex
 
     chrom, genome = make_genome(length=700, seed=11)
     fasta_p = str(tmp_path / "ref.fa")
@@ -223,7 +223,7 @@ def test_annotate_one_native_matches_python_path(tmp_path):
     rd_dir = str(tmp_path / "reads")
     make_raw_dataset(rd_dir, chrom, genome, n_reads=10, seed=12,
                      error_rate=0.04)
-    cfg = replace(AnnotateConfig(ref_fasta=fasta_p), use_pallas_dp=False)
+    cfg = AnnotateConfig(ref_fasta=fasta_p)
     cfg_py = replace(cfg, use_native=False)
     fasta = FastaIndex(fasta_p)
     sidx = SeedIndex(fasta.seqs, k=cfg.seed_k)
@@ -257,7 +257,7 @@ def test_annotate_one_native_matches_python_path(tmp_path):
 def test_device_walk_matches_python_walker():
     """walk_device (on-device lockstep traceback) + decode must reproduce
     the Python matrix walker op-for-op, via both decoders."""
-    from nanomod_tpu.resquiggle.banded import (banded_sw, decode_walk,
+    from nanomod.resquiggle.banded import (banded_sw, decode_walk,
                                                decode_walk_native,
                                                ops_to_arrays, traceback,
                                                walk_device)
@@ -284,14 +284,14 @@ def test_annotate_codes_batch_matches_per_read(tmp_path):
     import os
 
     from fixtures import make_genome, make_raw_dataset
-    from nanomod_tpu.config import AnnotateConfig, replace
-    from nanomod_tpu.io.fasta import FastaIndex
-    from nanomod_tpu.native.annotate_bind import annotate_codes_batch_native
-    from nanomod_tpu.resquiggle.banded import unpack_outputs
-    from nanomod_tpu.resquiggle.pipeline import (annotate_one, dispatch_dp,
+    from nanomod.config import AnnotateConfig
+    from nanomod.io.fasta import FastaIndex
+    from nanomod.native.annotate_bind import annotate_codes_batch_native
+    from nanomod.resquiggle.banded import unpack_outputs
+    from nanomod.resquiggle.pipeline import (annotate_one, dispatch_dp,
                                                  finish_alignment,
                                                  prepare_read)
-    from nanomod_tpu.resquiggle.seed import SeedIndex
+    from nanomod.resquiggle.seed import SeedIndex
 
     chrom, genome = make_genome(length=900, seed=21)
     fasta_p = str(tmp_path / "ref.fa")
@@ -300,7 +300,7 @@ def test_annotate_codes_batch_matches_per_read(tmp_path):
     rd_dir = str(tmp_path / "reads")
     make_raw_dataset(rd_dir, chrom, genome, n_reads=12, seed=22,
                      error_rate=0.05)
-    cfg = replace(AnnotateConfig(ref_fasta=fasta_p), use_pallas_dp=False)
+    cfg = AnnotateConfig(ref_fasta=fasta_p)
     fasta = FastaIndex(fasta_p)
     sidx = SeedIndex(fasta.seqs, k=cfg.seed_k)
 
@@ -315,7 +315,7 @@ def test_annotate_codes_batch_matches_per_read(tmp_path):
     tb, best, bi, bk = unpack_outputs(np.asarray(batch.packed),
                                       batch.tail_shape)
     n = len(prepared)
-    from nanomod_tpu.resquiggle.pipeline import _min_score
+    from nanomod.resquiggle.pipeline import _min_score
     accept = np.array(
         [best[i] >= _min_score(cfg, int(batch.lens[i])) for i in range(n)],
         np.uint8)
@@ -354,7 +354,7 @@ def test_pack_unpack_outputs_roundtrip():
     or endianness change fails loudly (advisor finding, round 3)."""
     import jax.numpy as jnp
 
-    from nanomod_tpu.resquiggle.banded import pack_outputs, unpack_outputs
+    from nanomod.resquiggle.banded import pack_outputs, unpack_outputs
 
     rng = np.random.default_rng(5)
     for tail in ((16, 8), (24,)):          # [M, W] tb modes and codes mode
@@ -382,7 +382,7 @@ def test_radix_sort_u64_hi_matches_np_sort():
     have passed)."""
     import ctypes
 
-    from nanomod_tpu.native.build import load_native
+    from nanomod.native.build import load_native
 
     lib = load_native("sort_core")
     if lib is None or not hasattr(lib, "nm_radix_sort_u64_hi"):

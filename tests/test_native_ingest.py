@@ -14,8 +14,8 @@ import pytest
 
 h5py = pytest.importorskip("h5py")
 
-from nanomod_tpu.io.fast5 import CORRECTED_EVENTS_DTYPE, read_corrected_events
-from nanomod_tpu.native.fast5_bind import (native_ingest_available,
+from nanomod.io.fast5 import CORRECTED_EVENTS_DTYPE, read_corrected_events
+from nanomod.native.fast5_bind import (native_ingest_available,
                                            read_corrected_batch)
 
 pytestmark = pytest.mark.skipif(not native_ingest_available(),
@@ -101,8 +101,8 @@ def test_batch_tolerates_bad_files(tmp_path):
 def test_detect_ingest_uses_native(tmp_path, monkeypatch):
     """ingest_group produces identical pools via native and h5py paths."""
     import dataclasses
-    from nanomod_tpu.config import DetectConfig
-    from nanomod_tpu.detect import ingest_group
+    from nanomod.config import DetectConfig
+    from nanomod.detect import ingest_group
     rng = np.random.default_rng(5)
     for i in range(6):
         _write(str(tmp_path / f"r{i}.fast5"), 200, rng,
@@ -128,10 +128,10 @@ def test_native_raw_prepare_matches_python(tmp_path):
     import numpy as np
 
     from fixtures import make_genome, make_raw_dataset
-    from nanomod_tpu.io.fast5 import read_raw_basecall
-    from nanomod_tpu.native.prepare_bind import native_prepare_batch
-    from nanomod_tpu.signal.events import extract_events
-    from nanomod_tpu.signal.normalize import mad_normalize
+    from nanomod.io.fast5 import read_raw_basecall
+    from nanomod.native.prepare_bind import native_prepare_batch
+    from nanomod.signal.events import extract_events
+    from nanomod.signal.normalize import mad_normalize
 
     chrom, genome = make_genome(length=1200, seed=5)
     rd_dir = str(tmp_path / "reads")
@@ -158,7 +158,7 @@ def test_native_raw_prepare_matches_python(tmp_path):
 
 def test_native_raw_prepare_error_taxonomy(tmp_path):
     """Broken FAST5s map to the reference's error keys or fall back."""
-    from nanomod_tpu.native.prepare_bind import native_prepare_batch
+    from nanomod.native.prepare_bind import native_prepare_batch
 
     import h5py
     # missing fastq
@@ -185,10 +185,10 @@ def test_native_raw_prepare_error_taxonomy(tmp_path):
 
 def _prepare_parity(paths):
     """Assert native_prepare_batch ≡ the Python prepare for given files."""
-    from nanomod_tpu.io.fast5 import read_raw_basecall
-    from nanomod_tpu.native.prepare_bind import native_prepare_batch
-    from nanomod_tpu.signal.events import extract_events
-    from nanomod_tpu.signal.normalize import mad_normalize
+    from nanomod.io.fast5 import read_raw_basecall
+    from nanomod.native.prepare_bind import native_prepare_batch
+    from nanomod.signal.events import extract_events
+    from nanomod.signal.normalize import mad_normalize
 
     res = native_prepare_batch(paths, "Basecall_1D_000",
                                "BaseCalled_template", 1)
@@ -295,11 +295,11 @@ def test_native_prepare_kmer_calibration(tmp_path):
     """Nanopolish-style shift/scale calibration in the native prepare must
     match the Python spec (weighted 2x2 solve + round-6 transform)."""
     from fixtures import ALBACORE2_EVENT_DTYPE
-    from nanomod_tpu.io.fast5 import read_raw_basecall
-    from nanomod_tpu.native.prepare_bind import (model_tables,
+    from nanomod.io.fast5 import read_raw_basecall
+    from nanomod.native.prepare_bind import (model_tables,
                                                  native_prepare_batch)
-    from nanomod_tpu.signal.events import extract_events
-    from nanomod_tpu.signal.normalize import (kmer_shift_scale,
+    from nanomod.signal.events import extract_events
+    from nanomod.signal.normalize import (kmer_shift_scale,
                                               load_kmer_model, mad_normalize)
 
     rng = np.random.default_rng(9)
@@ -354,9 +354,9 @@ def test_native_prepare_kmer_calibration_error(tmp_path):
     """Model states containing N -> 'Cannot nanopore correction' in both
     implementations (ref prepare_read KeyError handling)."""
     from fixtures import make_genome, make_raw_dataset
-    from nanomod_tpu.native.prepare_bind import (model_tables,
+    from nanomod.native.prepare_bind import (model_tables,
                                                  native_prepare_batch)
-    from nanomod_tpu.signal.normalize import load_kmer_model
+    from nanomod.signal.normalize import load_kmer_model
 
     chrom, genome = make_genome(length=700, seed=4)
     rd_dir = str(tmp_path / "reads")

@@ -6,8 +6,8 @@ import os
 import numpy as np
 
 from fixtures import make_genome, make_corrected_dataset, make_raw_dataset
-from nanomod_tpu.utils.observe import Observer, observer, stage
-from nanomod_tpu.config import OUTPUT_INFO, OUTPUT_WARNING
+from nanomod.utils.observe import Observer, observer, stage
+from nanomod.config import OUTPUT_INFO, OUTPUT_WARNING
 
 
 def test_observer_stage_accumulates():
@@ -42,8 +42,8 @@ def test_observer_to_json(tmp_path):
 
 
 def test_detect_writes_metrics_file(tmp_path):
-    from nanomod_tpu.config import DetectConfig
-    from nanomod_tpu.detect import run_detect
+    from nanomod.config import DetectConfig
+    from nanomod.detect import run_detect
 
     chrom, genome = make_genome(length=160, seed=3)
     ctrl = str(tmp_path / "ctrl")
@@ -65,9 +65,9 @@ def test_detect_writes_metrics_file(tmp_path):
 
 
 def test_annotate_resume_skips_done(tmp_path, capsys):
-    from nanomod_tpu.config import AnnotateConfig, replace
-    from nanomod_tpu.resquiggle import annotate_folder
-    from nanomod_tpu.io.fast5 import has_corrected_group
+    from nanomod.config import AnnotateConfig, replace
+    from nanomod.resquiggle import annotate_folder
+    from nanomod.io.fast5 import has_corrected_group
 
     chrom, genome = make_genome(length=260, seed=9)
     fasta = str(tmp_path / "ref.fa")

@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import pytest
 
-from nanomod_tpu.parallel.mesh import (distributed_detect_step, make_mesh,
+from nanomod.parallel.mesh import (distributed_detect_step, make_mesh,
                                        shard_pools_over_positions)
-from nanomod_tpu.stats import kernels
+from nanomod.stats import kernels
 
 
 @pytest.fixture(scope="module")
@@ -88,8 +88,8 @@ def corrected_dataset(tmp_path_factory):
 
 def _detect_bytes(root, ctrl, case, file_id, **kw):
     import os
-    from nanomod_tpu.config import DetectConfig, RankConfig, replace
-    from nanomod_tpu.detect import run_detect
+    from nanomod.config import DetectConfig, RankConfig, replace
+    from nanomod.detect import run_detect
     cfg = DetectConfig(wrk_base1=ctrl, wrk_base2=case,
                        out_folder=os.path.join(root, "out"),
                        file_id=file_id, min_lr=0, rank=RankConfig(window=4))
@@ -134,7 +134,7 @@ def test_stencil_halo_uses_collective_permute(mesh):
     """The neighbor stencil's halo exchange must compile to
     collective-permute (fixed-size boundary transfer), not all-gather."""
     import jax.numpy as jnp
-    from nanomod_tpu.parallel.sharded import _stencil_fn
+    from nanomod.parallel.sharded import _stencil_fn
     fn = _stencil_fn(mesh, 2, 0)
     P = 64
     args = (jnp.zeros(P, jnp.int32), jnp.zeros(P, jnp.int32),
@@ -146,7 +146,7 @@ def test_stencil_halo_uses_collective_permute(mesh):
 
 
 def test_shard_list_round_robin():
-    from nanomod_tpu.parallel.dist import shard_list
+    from nanomod.parallel.dist import shard_list
     items = list(range(10))
     shards = [shard_list(items, process_id=i, process_count=3) for i in range(3)]
     assert sorted(sum(shards, [])) == items
@@ -154,8 +154,8 @@ def test_shard_list_round_robin():
 
 
 def test_merge_pools_single_host_identity():
-    from nanomod_tpu.parallel.dist import merge_pools_across_hosts
-    from nanomod_tpu.accum.pools import PoolBuilder
+    from nanomod.parallel.dist import merge_pools_across_hosts
+    from nanomod.accum.pools import PoolBuilder
     b = PoolBuilder()
     b.add_read("c", "+", 5, np.array([1.0, 2.0], np.float32),
                np.array([b"A", b"C"], "S1"))
@@ -234,7 +234,7 @@ def run_threaded_merge(per_host_pools, merge_fn):
 
 
 def _build_pools(reads):
-    from nanomod_tpu.accum.pools import PoolBuilder
+    from nanomod.accum.pools import PoolBuilder
     b = PoolBuilder()
     for r in reads:
         b.add_read(*r)
@@ -260,7 +260,7 @@ def test_merge_pools_two_hosts_matches_single_host():
     hosts' merges running concurrently under a barrier-based thread gather
     standing in for jax.distributed, covering the real merge code path
     symmetrically on every rank."""
-    from nanomod_tpu.parallel.dist import merge_pools_across_hosts
+    from nanomod.parallel.dist import merge_pools_across_hosts
 
     reads_a = _reads_for_host(1)
     reads_b = _reads_for_host(2, chroms=("cA", "cC"))  # asymmetric keys
@@ -281,7 +281,7 @@ def test_merge_pools_three_hosts_one_empty():
     """A host with zero reads (empty pool dict) must participate in the
     collective without corrupting the union — the all-hosts-identical
     invariant is what run_detect relies on downstream."""
-    from nanomod_tpu.parallel.dist import merge_pools_across_hosts
+    from nanomod.parallel.dist import merge_pools_across_hosts
 
     reads_a = _reads_for_host(3)
     reads_b = _reads_for_host(4, chroms=("cA", "cD"))
@@ -299,7 +299,7 @@ def test_merge_pools_three_hosts_one_empty():
 def test_merge_annotate_stats_two_hosts():
     """Annotate run stats (ok count, error path lists, resegment histogram)
     merge to identical global totals on every rank."""
-    from nanomod_tpu.parallel.dist import merge_annotate_stats
+    from nanomod.parallel.dist import merge_annotate_stats
 
     per_host = [
         (5, {"Not in alignment sam": ["a.fast5"], "X": ["b.fast5"]}, {4: 3}),
@@ -317,7 +317,7 @@ def test_merge_annotate_stats_two_hosts():
 
 
 def test_merge_annotate_stats_single_host_identity():
-    from nanomod_tpu.parallel.dist import merge_annotate_stats
+    from nanomod.parallel.dist import merge_annotate_stats
 
     errs, hist = {"k": ["p"]}, {2: 1}
     n, e, h = merge_annotate_stats(3, errs, hist, process_count=1)

@@ -4,11 +4,11 @@ region-window mode (RegionRankbyST=1, ref myDetect.py:463-516)."""
 import numpy as np
 import pytest
 
-from nanomod_tpu.config import RankConfig, StatConfig
-from nanomod_tpu.rank.ranking import (SignTable, region_rank,
+from nanomod.config import RankConfig, StatConfig
+from nanomod.rank.ranking import (SignTable, region_rank,
                                       region_rank_spec, sort_sites,
                                       top_sites)
-from nanomod_tpu.stats.battery import TestResult
+from nanomod.stats.battery import TestResult
 
 
 def _table(p=60, seed=0, planted=30):

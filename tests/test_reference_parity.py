@@ -52,9 +52,9 @@ def _make_observations(seed=0, n_pos=120):
 
 
 def _ours_from_observations(obs1, obs2, out, stats_kw):
-    from nanomod_tpu.accum.pools import pack_observations, _BASE_TO_CODE
-    from nanomod_tpu.config import DetectConfig, StatConfig
-    from nanomod_tpu.detect import detect_from_pools, save_sign_test
+    from nanomod.accum.pools import pack_observations, _BASE_TO_CODE
+    from nanomod.config import DetectConfig, StatConfig
+    from nanomod.detect import detect_from_pools, save_sign_test
 
     def pools_of(obs):
         out_p = {}
@@ -113,10 +113,10 @@ def test_reference_ranking_matches(ref_detect, tmp_path):
     run_reference_detect(ref_detect, m)
     ref_top = m["sorted_sign_test"][0][0]      # (chrom, strand, pos, ...)
 
-    from nanomod_tpu.accum.pools import pack_observations, _BASE_TO_CODE
-    from nanomod_tpu.config import DetectConfig
-    from nanomod_tpu.detect import detect_from_pools
-    from nanomod_tpu.rank.ranking import top_sites
+    from nanomod.accum.pools import pack_observations, _BASE_TO_CODE
+    from nanomod.config import DetectConfig
+    from nanomod.detect import detect_from_pools
+    from nanomod.rank.ranking import top_sites
 
     def pools_of(obs):
         out_p = {}
@@ -156,7 +156,7 @@ def ref_annotate(tmp_path_factory):
 def test_annotate_core_matches_reference_code(ref_annotate, strand, seed):
     from reference_oracle import run_reference_annotate
     from test_native import _random_read
-    from nanomod_tpu.resquiggle.annotate import (Columns, GenomeEvents,
+    from nanomod.resquiggle.annotate import (Columns, GenomeEvents,
                                                  annotate_read,
                                                  group_indels,
                                                  mark_repeat_indels)

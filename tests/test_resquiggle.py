@@ -7,15 +7,15 @@ import numpy as np
 import pytest
 
 from fixtures import make_genome, make_raw_dataset, write_raw_fixture
-from nanomod_tpu.config import AnnotateConfig, DetectConfig, RankConfig
-from nanomod_tpu.io.fast5 import read_corrected_events
-from nanomod_tpu.io.fasta import FastaIndex, revcomp
-from nanomod_tpu.resquiggle.annotate import (Columns, GenomeEvents,
+from nanomod.config import AnnotateConfig, DetectConfig, RankConfig
+from nanomod.io.fast5 import read_corrected_events
+from nanomod.io.fasta import FastaIndex, revcomp
+from nanomod.resquiggle.annotate import (Columns, GenomeEvents,
                                              find_split_points,
                                              group_indels,
                                              mark_repeat_indels)
-from nanomod_tpu.resquiggle.pipeline import annotate_folder
-from nanomod_tpu.resquiggle.seed import SeedIndex
+from nanomod.resquiggle.pipeline import annotate_folder
+from nanomod.resquiggle.seed import SeedIndex
 
 
 def _write_fasta(path, chrom, genome):
@@ -151,7 +151,7 @@ def test_annotate_layout_and_mapping(annotated):
 
 def test_annotate_then_detect_round_trip(annotated):
     root, chrom, genome, ctrl, case = annotated
-    from nanomod_tpu.detect import run_detect
+    from nanomod.detect import run_detect
     cfg = DetectConfig(
         wrk_base1=ctrl, wrk_base2=case,
         out_folder=os.path.join(root, "out"),
@@ -165,34 +165,11 @@ def test_annotate_then_detect_round_trip(annotated):
         f"top site {top.chrom}:{top.pos}{top.strand}, expected ~{MOD_POS}")
 
 
-def test_pallas_dp_matches_scan():
-    """The Pallas banded-DP kernel must be cell-identical to the lax.scan
-    reference implementation (interpret mode on CPU)."""
-    from nanomod_tpu.resquiggle.banded import banded_sw
-    from nanomod_tpu.resquiggle.banded_pallas import banded_sw_pallas
-
-    B, M, W = 8, 256, 128
-    rng = np.random.default_rng(0)
-    ref = rng.integers(0, 4, (B, M + W)).astype(np.uint8)
-    read = np.empty((B, M), np.uint8)
-    for b in range(B):
-        read[b] = ref[b, W // 2: W // 2 + M]
-        mut = rng.random(M) < 0.05
-        read[b, mut] = rng.integers(0, 4, mut.sum())
-    lens = np.full(B, M, np.int32)
-    lens[5] = 200
-
-    r_ref = [np.asarray(x) for x in banded_sw(read, ref, lens)]
-    r_pal = [np.asarray(x) for x in banded_sw_pallas(read, ref, lens)]
-    for name, a, b in zip(["tb", "best", "bi", "bk"], r_ref, r_pal):
-        np.testing.assert_array_equal(a, b, err_msg=name)
-
-
 def test_pack_unpack_outputs_round_trip():
     """pack_outputs/unpack_outputs must be an exact round trip in all three
     tb payload modes (plain / nibble-packed / device-walk codes) — this
     pins the XLA bitcast byte order against host endianness (ADVICE r3)."""
-    from nanomod_tpu.resquiggle.banded import (pack_outputs, pack_tb,
+    from nanomod.resquiggle.banded import (pack_outputs, pack_tb,
                                                unpack_outputs, walk_device)
 
     B, M, W = 4, 32, 8
@@ -224,7 +201,7 @@ def test_pack_unpack_outputs_round_trip():
 def test_pack_outputs_float_score_rounds():
     """A float-valued score config must round (not truncate toward zero)
     into the packed int32 slot (ADVICE r3)."""
-    from nanomod_tpu.resquiggle.banded import pack_outputs, unpack_outputs
+    from nanomod.resquiggle.banded import pack_outputs, unpack_outputs
 
     tb = np.zeros((2, 4, 4), np.uint8)
     best = np.array([41.6, -3.4], np.float32)
@@ -237,9 +214,9 @@ def test_pack_outputs_float_score_rounds():
 def test_native_seed_batch_matches_python():
     """best_bands_native (seed_core.cpp) must agree with the per-read
     Python best_band on strand/chrom and land in the same DP band."""
-    from nanomod_tpu.io.fasta import revcomp
-    from nanomod_tpu.native.build import native_available
-    from nanomod_tpu.resquiggle.seed import SeedIndex
+    from nanomod.io.fasta import revcomp
+    from nanomod.native.build import native_available
+    from nanomod.resquiggle.seed import SeedIndex
 
     if not native_available("seed_core"):
         pytest.skip("no native toolchain")
@@ -277,9 +254,9 @@ def test_streaming_chunks_with_failures(tmp_path):
     import os
 
     from fixtures import make_genome, make_raw_dataset
-    from nanomod_tpu.config import AnnotateConfig, replace
-    from nanomod_tpu.io.fast5 import read_corrected_events
-    from nanomod_tpu.resquiggle import annotate_files
+    from nanomod.config import AnnotateConfig, replace
+    from nanomod.io.fast5 import read_corrected_events
+    from nanomod.resquiggle import annotate_files
 
     chrom, genome = make_genome(length=700, seed=31)
     fasta_p = str(tmp_path / "ref.fa")
@@ -293,11 +270,11 @@ def test_streaming_chunks_with_failures(tmp_path):
         with open(paths[idx], "wb") as f:
             f.write(b"not an hdf5 file at all")
     cfg = replace(AnnotateConfig(wrk_base1=rd, ref_fasta=fasta_p),
-                  files_per_thread=8, use_pallas_dp=False)
+                  files_per_thread=8)
     # _chunked ramp-up needs >=192 files to trigger; emulate chunking by
     # calling annotate_files (chunks of max(64,...)=64 -> single chunk for
     # 40 files) AND the explicit multi-chunk path via _chunked monkeypatch
-    from nanomod_tpu.resquiggle import pipeline as pl
+    from nanomod.resquiggle import pipeline as pl
     chunks = [paths[:5], paths[5:20], paths[20:28], paths[28:]]
     fasta = pl.FastaIndex(fasta_p)
     sidx = pl.SeedIndex(fasta.seqs, k=cfg.seed_k)

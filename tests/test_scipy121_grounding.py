@@ -19,7 +19,7 @@ from fractions import Fraction
 import numpy as np
 import pytest
 
-from nanomod_tpu.stats.battery import run_battery
+from nanomod.stats.battery import run_battery
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(HERE, "golden", "scipy121_cases.json")

@@ -97,7 +97,7 @@ def dataset(tmp_path_factory):
 
 
 def _cfg(root, out, **kw):
-    from nanomod_tpu.config import DetectConfig, RankConfig, StatConfig
+    from nanomod.config import DetectConfig, RankConfig, StatConfig
     return DetectConfig(
         wrk_base1=os.path.join(root, "control"),
         wrk_base2=os.path.join(root, "case"),
@@ -110,8 +110,8 @@ def _cfg(root, out, **kw):
 
 @pytest.mark.parametrize("n_hosts", [2, 3])
 def test_sharded_detect_matches_single_host(dataset, tmp_path, n_hosts):
-    from nanomod_tpu.detect import run_detect
-    from nanomod_tpu.parallel.shardmerge import distributed_detect_sharded
+    from nanomod.detect import run_detect
+    from nanomod.parallel.shardmerge import distributed_detect_sharded
 
     single_out = os.path.join(str(tmp_path), "single")
     table, order, want_sites = run_detect(_cfg(dataset, single_out))
@@ -139,8 +139,8 @@ def test_sharded_detect_matches_single_host(dataset, tmp_path, n_hosts):
 
 
 def test_sharded_detect_mstd_parts_concatenate(dataset, tmp_path):
-    from nanomod_tpu.detect import run_detect
-    from nanomod_tpu.parallel.shardmerge import distributed_detect_sharded
+    from nanomod.detect import run_detect
+    from nanomod.parallel.shardmerge import distributed_detect_sharded
 
     single_out = os.path.join(str(tmp_path), "single")
     run_detect(_cfg(dataset, single_out, mstd=True))
@@ -162,9 +162,9 @@ def test_sharded_region_rank_matches_single_host(dataset, tmp_path, n_hosts,
     """RegionRankbyST=1 under the sharded merge: global window grid, the
     cp>=pmax quirk, (q, tie) ordering, overlap dedup and the top-N walk all
     must reproduce the single-host region ranking exactly."""
-    from nanomod_tpu.config import RankConfig, replace
-    from nanomod_tpu.detect import run_detect
-    from nanomod_tpu.parallel.shardmerge import distributed_detect_sharded
+    from nanomod.config import RankConfig, replace
+    from nanomod.detect import run_detect
+    from nanomod.parallel.shardmerge import distributed_detect_sharded
 
     def cfg(out):
         base = _cfg(dataset, out)
@@ -200,9 +200,9 @@ def test_sharded_plots_match_single_host(dataset, tmp_path):
     """make_plots under the sharded merge: owners collect their sites'
     window payloads, rank 0 renders the single reference-named PDF with
     the same pages as the single-host run."""
-    from nanomod_tpu.config import replace
-    from nanomod_tpu.detect import run_detect
-    from nanomod_tpu.parallel.shardmerge import distributed_detect_sharded
+    from nanomod.config import replace
+    from nanomod.detect import run_detect
+    from nanomod.parallel.shardmerge import distributed_detect_sharded
 
     single_out = os.path.join(str(tmp_path), "single")
     run_detect(replace(_cfg(dataset, single_out), make_plots=True))
@@ -224,8 +224,8 @@ def test_exchange_transfer_volume_10m_observations():
     off-host bytes must be a small fraction of the full-union allgather's
     pc x total — and the owned ranges reassemble the exact single-host
     pools."""
-    from nanomod_tpu.accum.pools import PoolBuilder, pack_observations
-    from nanomod_tpu.parallel.shardmerge import (exchange_group,
+    from nanomod.accum.pools import PoolBuilder, pack_observations
+    from nanomod.parallel.shardmerge import (exchange_group,
                                                  plan_position_shards)
 
     n_hosts, p_len, reads_per_host = 4, 250_000, 10

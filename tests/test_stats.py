@@ -11,10 +11,10 @@ import numpy as np
 import pytest
 import scipy.stats as ss
 
-from nanomod_tpu.config import StatConfig
-from nanomod_tpu.stats import special
-from nanomod_tpu.stats.battery import run_battery
-from nanomod_tpu.stats.combine import combine_neighbor_pvalues, neighbor_matrix
+from nanomod.config import StatConfig
+from nanomod.stats import special
+from nanomod.stats.battery import run_battery
+from nanomod.stats.combine import combine_neighbor_pvalues, neighbor_matrix
 
 RNG = np.random.default_rng(42)
 
@@ -67,7 +67,7 @@ def test_battery_matches_scipy(ties):
 
 def test_rank_sum_exact_with_ties():
     # doubled rank sums must be exactly the (integer) 2*scipy rankdata sums
-    from nanomod_tpu.stats import kernels
+    from nanomod.stats import kernels
     import jax.numpy as jnp
 
     v1, c1, v2, c2 = _make_pools(16, 20, 25, ties=True)
@@ -250,8 +250,8 @@ def test_stencil_combine_matches_neighbor_matrix():
     """The transform-once stencil must be BITWISE equal to combining the
     explicit neighbor matrix, for both methods, across gaps and group
     boundaries."""
-    from nanomod_tpu.config import StatConfig
-    from nanomod_tpu.stats import special
+    from nanomod.config import StatConfig
+    from nanomod.stats import special
 
     rng = np.random.default_rng(9)
     n = 5000

@@ -1,17 +1,13 @@
 #!/usr/bin/env python
-"""Per-length-bucket banded-DP benchmark: lax.scan vs Pallas, plus the
-walk/fetch split (VERDICT r4 next-step #7 evidence).
+"""Per-length-bucket banded-DP benchmark: DP, device walk and fetch.
 
-For each read-length bucket, measures on the real chip (median of N):
+For each read-length bucket, measures (median of N):
 
-    dp_scan      — banded_sw (lax.scan) dispatch+compute, block on tb
-    dp_pallas    — banded_sw_pallas dispatch+compute, block on tb
-    walk         — walk_device (device traceback walk) on the tb matrix
-    pack+fetch   — pack_codes2 + packed D2H of the op codes
+    dp_ms          — banded_sw (lax.scan) dispatch+compute, block on tb
+    walk_ms        — walk_device (device traceback walk) on the tb matrix
+    pack_fetch_ms  — pack_codes2 + D2H of the packed op codes
 
-The sum walk+pack+fetch bounds what FUSING the walk into the Pallas DP
-kernel could save (it eliminates the separate walk dispatch and the tb
-HBM round trip).  Usage: python tools/bench_dp_buckets.py [buckets...]
+Usage: python tools/bench_dp_buckets.py [buckets...]
 """
 
 import json
@@ -23,15 +19,12 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-import jax.numpy as jnp
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    ".jax_cache"))
-
-from nanomod_tpu.resquiggle.banded import (banded_sw, pack_codes2,  # noqa: E402
-                                           walk_device)
+from nanomod import use_compile_cache  # noqa: E402
+from nanomod.resquiggle.banded import (banded_sw, pack_codes2,  # noqa: E402
+                                       walk_device)
 
 W = 128
 B = 64
@@ -39,7 +32,6 @@ REPS = 5
 
 
 def bench_bucket(m):
-    from nanomod_tpu.resquiggle.banded_pallas import banded_sw_pallas
     rng = np.random.default_rng(0)
     read_codes = rng.integers(0, 4, (B, m)).astype(np.uint8)
     ref_codes = rng.integers(0, 4, (B, m + W)).astype(np.uint8)
@@ -49,7 +41,9 @@ def bench_bucket(m):
         rng.random((B, m)) < 0.9, read_codes, ref_codes[:, W // 2: W // 2 + m])
     rd, rf, ln = jnp.asarray(read_codes), jnp.asarray(ref_codes), jnp.asarray(lens)
 
-    out = {"bucket": m, "batch": B}
+    dev = jax.devices()[0]
+    out = {"bucket": m, "batch": B, "platform": dev.platform,
+           "device_kind": dev.device_kind}
 
     def timed(fn, key):
         fn()                      # warm/compile
@@ -60,15 +54,8 @@ def bench_bucket(m):
             ts.append(time.perf_counter() - t0)
         out[key] = round(float(np.median(ts)) * 1e3, 2)   # ms
 
-    timed(lambda: jax.block_until_ready(banded_sw(rd, rf, ln)), "dp_scan_ms")
-    try:
-        timed(lambda: jax.block_until_ready(banded_sw_pallas(rd, rf, ln)),
-              "dp_pallas_ms")
-    except Exception as e:
-        out["dp_pallas_ms"] = f"unsupported: {type(e).__name__}"
-        return out
-
-    tb, best, bi, bk = banded_sw_pallas(rd, rf, ln)
+    timed(lambda: jax.block_until_ready(banded_sw(rd, rf, ln)), "dp_ms")
+    tb, best, bi, bk = banded_sw(rd, rf, ln)
     jax.block_until_ready(tb)
     timed(lambda: jax.block_until_ready(walk_device(tb, bi, bk)), "walk_ms")
     codes = walk_device(tb, bi, bk)
@@ -77,11 +64,11 @@ def bench_bucket(m):
     def pack_fetch():
         np.asarray(pack_codes2(codes))
     timed(pack_fetch, "pack_fetch_ms")
-    out["fusion_ceiling_ms"] = round(out["walk_ms"], 2)
     return out
 
 
 def main():
+    use_compile_cache()
     buckets = [int(x) for x in sys.argv[1:]] or [2048, 4096, 8192, 16384]
     for m in buckets:
         print(json.dumps(bench_bucket(m)), flush=True)

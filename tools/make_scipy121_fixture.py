@@ -5,7 +5,7 @@ VERDICT r4 (missing #2): the in-repo scipy-1.2.1 replicas
 (stats/special.py, tests/golden/make_golden.py) validated each other —
 the 1.2.1 formulas themselves were self-referential.  This generator
 produces `tests/golden/scipy121_cases.json` WITHOUT importing scipy or
-any nanomod_tpu code: statistics are computed in EXACT rational
+any nanomod code: statistics are computed in EXACT rational
 arithmetic (fractions.Fraction over the integer milli domain) and
 p-values by 60-digit mpmath evaluation of the closed-form definitions
 scipy 1.2.1 implements:

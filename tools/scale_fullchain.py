@@ -1,13 +1,11 @@
 #!/usr/bin/env python
-"""Full-chain scale run: raw FAST5 -> Annotate -> detect (VERDICT r4
-next-step #6 — the flagship claim should cover the WHOLE pipeline the
-reference runs: Annotate's FAST5 write-back feeding detect's ingest,
-ref myRefBaseSignalAnnotation.py:689-749 -> myDetect.py:547-633).
+"""Full-chain scale run: raw FAST5 -> Annotate -> detect — the whole
+pipeline the reference runs: Annotate's FAST5 write-back feeding detect's
+ingest (ref myRefBaseSignalAnnotation.py:689-749 -> myDetect.py:547-633).
 
-Generates two groups of RAW basecalled FAST5s (albacore2-style event
-tables + DAC signal; vectorized synthesis — the tests/fixtures.py
-per-base generator is ~100x too slow at this scale), with 20 modified
-sites planted as pA-level shifts in the case group, then runs:
+Generates two groups of RAW basecalled FAST5s (harness/synth.py:
+albacore2-style event tables + DAC signal), with 20 modified sites
+planted as pA-level shifts in the case group, then runs:
 
     Annotate (ingest -> events -> MAD normalize -> seed -> banded DP ->
               indel correction -> FAST5 write-back)          x 2 groups
@@ -27,7 +25,6 @@ import resource
 import sys
 import time
 
-import h5py
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -40,161 +37,29 @@ DELTA_PA = float(os.environ.get("FC_DELTA_PA", 6.0))
 N_SITES = 20
 CHROM = "ecoli_syn"
 
-DIGITISATION, RANGE, OFFSET, RATE = 8192.0, 1400.0, 10.0, 4000.0
-BASES_U8 = np.frombuffer(b"ACGT", np.uint8)
-
 
 def rss_gb():
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
-
-
-ALBACORE2_EVENT_DTYPE = np.dtype([
-    ("mean", "<f8"), ("stdv", "<f8"), ("start", "<u8"), ("length", "<u8"),
-    ("model_state", "S5"), ("move", "<i4"),
-])
-
-
-def synth_read(seq_u8, lvl_tbl, rng, shift_pa=None):
-    """Vectorized raw-read synthesis for one basecalled sequence.
-
-    seq_u8: TRUE sequence bytes (already strand-oriented).  shift_pa:
-    per-TRUE-base pA additions (modification profile) or None.
-    Applies substitution/insertion/deletion errors at rate ERR, then
-    emits (dac int16, events, bc_bytes).
-    """
-    L = len(seq_u8)
-    r = rng.random(L)
-    keep = r >= ERR / 3                                   # deletions
-    codes = np.searchsorted(BASES_U8, seq_u8)
-    shift = shift_pa if shift_pa is not None else None
-    codes = codes[keep]
-    kept_shift = shift[keep] if shift is not None else None
-    # substitutions
-    sub = rng.random(len(codes)) < ERR / 3
-    codes = np.where(sub, rng.integers(0, 4, len(codes)), codes)
-    # insertions: duplicate marked bases, the copy becomes a random base
-    ins = rng.random(len(codes)) < ERR / 3
-    rep = np.repeat(codes, 1 + ins)
-    if kept_shift is not None:
-        rep_shift = np.repeat(kept_shift, 1 + ins)
-    else:
-        rep_shift = None
-    # the SECOND copy of each duplicated base: positions of dup copies
-    dup_at = np.cumsum(1 + ins)[ins] - 1
-    rep[dup_at] = rng.integers(0, 4, len(dup_at))
-    bc_codes = rep
-    n = len(bc_codes)
-    if n < 50:
-        return None
-
-    # 5-mer levels: rolling index over the basecall
-    pad = np.concatenate([np.zeros(2, np.int64), bc_codes,
-                          np.zeros(2, np.int64)])
-    k5 = (pad[:-4] * 256 + pad[1:-3] * 64 + pad[2:-2] * 16
-          + pad[3:-1] * 4 + pad[4:])
-    level = lvl_tbl[k5]
-    if rep_shift is not None:
-        level = level + rep_shift
-
-    dwells = np.maximum(rng.poisson(9, n), 4).astype(np.int64)
-    starts = np.zeros(n, np.uint64)
-    starts[1:] = np.cumsum(dwells)[:-1]
-    total = int(dwells.sum())
-    sig = np.repeat(level, dwells) + rng.normal(0.0, 1.5, total)
-
-    ev = np.zeros(n, ALBACORE2_EVENT_DTYPE)
-    ev["start"] = starts
-    ev["length"] = dwells
-    ev["move"] = 1
-    ev["move"][0] = 0
-    edges = starts.astype(np.int64)
-    s1 = np.add.reduceat(sig, edges)
-    s2 = np.add.reduceat(sig * sig, edges)
-    mean = s1 / dwells
-    ev["mean"] = mean
-    ev["stdv"] = np.sqrt(np.maximum(s2 / dwells - mean * mean, 0.0))
-    bc_u8 = BASES_U8[bc_codes]
-    padded = np.concatenate([np.full(2, ord("N"), np.uint8), bc_u8,
-                             np.full(2, ord("N"), np.uint8)])
-    win = np.lib.stride_tricks.sliding_window_view(padded, 5)
-    ev["model_state"] = np.ascontiguousarray(win[:n]).view("S5").ravel()
-
-    dac = np.round(sig * DIGITISATION / RANGE - OFFSET).astype(np.int16)
-    return dac, ev, bc_u8.tobytes()
-
-
-def gen_raw_group(folder, genome_u8, comp_u8, lvl_tbl, rng, planted=None):
-    os.makedirs(folder, exist_ok=True)
-    shift_fwd = None
-    if planted is not None:
-        shift_fwd = np.zeros(GENOME_LEN, np.float32)
-        for p in planted:
-            for off, sc in ((-1, 0.5), (0, 1.0), (1, 0.5)):
-                if 0 <= p + off < GENOME_LEN:
-                    shift_fwd[p + off] += DELTA_PA * sc
-    n_written = 0
-    for i in range(N_READS):
-        strand = "+-"[int(rng.integers(2))]
-        start = int(rng.integers(0, GENOME_LEN - READ_LEN + 1))
-        if strand == "+":
-            seq = genome_u8[start: start + READ_LEN]
-            shift = (shift_fwd[start: start + READ_LEN]
-                     if shift_fwd is not None else None)
-        else:
-            seq = comp_u8[start: start + READ_LEN][::-1]
-            shift = (shift_fwd[start: start + READ_LEN][::-1]
-                     if shift_fwd is not None else None)
-        out = synth_read(seq, lvl_tbl, rng, shift_pa=shift)
-        if out is None:
-            continue
-        dac, ev, bc = out
-        sub = os.path.join(folder, str(i // 4000))
-        os.makedirs(sub, exist_ok=True)
-        p = os.path.join(sub, f"raw{i:06d}.fast5")
-        with h5py.File(p, "w") as f:
-            ch = f.create_group("UniqueGlobalKey/channel_id")
-            ch.attrs["digitisation"] = DIGITISATION
-            ch.attrs["offset"] = OFFSET
-            ch.attrs["range"] = RANGE
-            ch.attrs["sampling_rate"] = RATE
-            rg = f.create_group(f"Raw/Reads/Read_{i}")
-            rg.attrs["read_id"] = f"read-{i:06d}"
-            rg.create_dataset("Signal", data=dac)
-            bcg = f.create_group("Analyses/Basecall_1D_000")
-            bcg.attrs["name"] = b"ONT Albacore Sequencing Software"
-            bcg.attrs["version"] = b"2.3.1"
-            bt = bcg.create_group("BaseCalled_template")
-            bt.create_dataset("Events", data=ev)
-            fq = b"@read-%06d\n%s\n+\n%s\n" % (i, bc, b"!" * len(bc))
-            bt.create_dataset("Fastq", data=fq)
-        n_written += 1
-    return n_written
 
 
 def main():
     import jax
     if os.environ.get("SCALE_CPU"):
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache"))
+    from nanomod import use_compile_cache
+    use_compile_cache()
 
-    from nanomod_tpu.config import AnnotateConfig, DetectConfig, RankConfig
-    from nanomod_tpu.detect import run_detect
-    from nanomod_tpu.io.fasta import FastaIndex
-    from nanomod_tpu.resquiggle import annotate_files
-    from nanomod_tpu.io.fast5 import iter_fast5_files
-    from nanomod_tpu.resquiggle.seed import SeedIndex
+    from nanomod.config import AnnotateConfig, DetectConfig, RankConfig
+    from nanomod.detect import run_detect
+    from nanomod.io.fasta import FastaIndex
+    from nanomod.resquiggle import annotate_files
+    from nanomod.io.fast5 import iter_fast5_files
+    from nanomod.harness.synth import scale_genome, write_raw_group
+    from nanomod.resquiggle.seed import SeedIndex
 
     root = sys.argv[1] if len(sys.argv) > 1 else "/tmp/nanomod_fullchain"
     os.makedirs(root, exist_ok=True)
-    rng = np.random.default_rng(0)
-    genome_u8 = rng.choice(BASES_U8, GENOME_LEN)
-    comp_u8 = np.frombuffer(b"TGCA", np.uint8)[
-        np.searchsorted(BASES_U8, genome_u8)]
-    lvl_tbl = np.clip(rng.normal(100.0, 15.0, 1024), 55, 145)
-    planted = sorted(int(p) for p in
-                     rng.choice(GENOME_LEN - 100, N_SITES, replace=False) + 50)
+    genome_u8, _, planted = scale_genome(0, GENOME_LEN, N_SITES)
 
     fasta_p = os.path.join(root, "ref.fa")
     if not os.path.isfile(fasta_p):
@@ -210,11 +75,12 @@ def main():
     ctrl, case = os.path.join(root, "ctrl"), os.path.join(root, "case")
     t0 = time.time()
     if not os.path.isdir(ctrl):
-        n1 = gen_raw_group(ctrl, genome_u8, comp_u8, lvl_tbl,
-                           np.random.default_rng(1))
-        n2 = gen_raw_group(case, genome_u8, comp_u8, lvl_tbl,
-                           np.random.default_rng(2), planted=planted)
-        summary["generated"] = [n1, n2]
+        write_raw_group(ctrl, genome_u8, np.random.default_rng(1), N_READS,
+                        READ_LEN, error_rate=ERR)
+        write_raw_group(case, genome_u8, np.random.default_rng(2), N_READS,
+                        READ_LEN, planted=planted, mod_delta_pa=DELTA_PA,
+                        error_rate=ERR)
+        summary["generated"] = [N_READS, N_READS]
     summary["gen_wall_s"] = round(time.time() - t0, 1)
     print("[fullchain] gen: " + json.dumps(summary), flush=True)
 

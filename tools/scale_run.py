@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""E. coli-scale end-to-end detect run (VERDICT r1 next-step #4).
+"""E. coli-scale end-to-end detect run.
 
 Generates a synthetic 4.6 Mb genome and two groups of corrected-FAST5 reads
-(default 25k x 2 kb per group, ~11x coverage per strand — override with
+(default 35k x 3 kb per group, ~11x coverage per strand — override with
 SCALE_READS / SCALE_READ_LEN / SCALE_GENOME), plants 20 modified sites in
 the case group, then measures the PRODUCT path end to end:
 
@@ -10,7 +10,7 @@ the case group, then measures the PRODUCT path end to end:
     combination -> ranking -> _sign_test.txt
 
 reporting wall-clock per phase, peak RSS, and whether every planted site
-ranks in the top-50.  Results are recorded in README.md.
+ranks in the top-50.
 
 Run from the repo root:   python tools/scale_run.py [out_dir]
 Delete the out_dir afterwards (it holds ~1-3 GB of FAST5s).
@@ -22,15 +22,14 @@ import resource
 import sys
 import time
 
-import h5py
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from nanomod_tpu.config import DetectConfig, RankConfig  # noqa: E402
-from nanomod_tpu.detect import run_detect  # noqa: E402
-from nanomod_tpu.io.fast5 import (CORRECTED_EVENTS_DTYPE,  # noqa: E402
-                                  write_corrected_events)
+from nanomod.config import DetectConfig, RankConfig  # noqa: E402
+from nanomod.detect import run_detect  # noqa: E402
+from nanomod.harness.synth import (scale_genome,  # noqa: E402
+                                   write_corrected_group)
 
 GENOME_LEN = int(os.environ.get("SCALE_GENOME", 4_600_000))
 N_READS = int(os.environ.get("SCALE_READS", 35_000))
@@ -44,85 +43,25 @@ def rss_gb():
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
 
 
-def gen_group(folder, genome_arr, levels, rng, planted=None,
-              n_reads=None, read_len=None, mod_delta=None):
-    """Write one group of corrected FAST5s with vectorized signal synthesis
-    (the tests/fixtures.py per-base hash generator is too slow at 100M
-    events)."""
-    n_reads = N_READS if n_reads is None else n_reads
-    rl = READ_LEN if read_len is None else read_len
-    delta = MOD_DELTA if mod_delta is None else mod_delta
-    glen = len(genome_arr)
-    os.makedirs(folder, exist_ok=True)
-    comp = np.frombuffer(b"TGCA", np.uint8)[
-        np.searchsorted(np.frombuffer(b"ACGT", np.uint8), genome_arr)]
-    for i in range(n_reads):
-        # random strand (NOT i%2: round-robin file sharding would then give
-        # each of 2 hosts a single strand — exactly the strand-concatenated
-        # coordinate ranges — making the multi-host routing measurement
-        # degenerate)
-        strand = "+-"[int(rng.integers(2))]
-        start = int(rng.integers(0, glen - rl + 1))
-        gpos = np.arange(start, start + rl)
-        # level track keyed by STRAND (a physical per-(pos,strand) k-mer
-        # level), not by read index: with random strands, levels[i % 2]
-        # would mix two ~N(0,1)-apart tracks inside every (pos,strand)
-        # pool, drowning the planted shift in bimodal within-pool spread
-        # (measured: 19/20 planted sites in top-50 -> 0/20)
-        means = levels[strand == "-"][gpos] + rng.normal(0.0, 0.3, rl)
-        if planted is not None:
-            # bulky-adduct profile: full shift at the site, half at ±1
-            # (what the ±k neighbor combination exists to capture,
-            # ref myDetect.py:373-414)
-            for tp in planted:
-                for off, scale in ((-1, 0.5), (0, 1.0), (1, 0.5)):
-                    if start <= tp + off < start + rl:
-                        means[tp + off - start] += delta * scale
-        ev = np.zeros(rl, CORRECTED_EVENTS_DTYPE)
-        if strand == "-":
-            ev["norm_mean"] = np.round(means[::-1], 3)
-            ev["base"] = comp[gpos[::-1]].view("S1")
-        else:
-            ev["norm_mean"] = np.round(means, 3)
-            ev["base"] = genome_arr[gpos].view("S1")
-        ev["norm_stdev"] = 0.1
-        ev["start"] = np.arange(rl, dtype=np.uint32) * 8
-        ev["length"] = 8
-        sub = os.path.join(folder, str(i // 4000))
-        os.makedirs(sub, exist_ok=True)
-        p = os.path.join(sub, f"r{i:06d}.fast5")
-        with h5py.File(p, "w"):
-            pass
-        write_corrected_events(p, CHROM, start, strand, ev,
-                               read_alignment=ev["base"],
-                               genome_alignment=ev["base"],
-                               num_matches=rl)
-
-
 def main():
-    import jax
-
-    import nanomod_tpu
+    import nanomod
     # tune BEFORE generation: the dataset-writing phase churns GB-sized
     # buffers, and a warm arena is what keeps the detect-phase pool build
-    # at full speed (cold first-touch pages stream at ~0.2 GB/s here)
-    nanomod_tpu.tune_malloc()
-    jax.config.update("jax_compilation_cache_dir", os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache"))
+    # at full speed
+    nanomod.tune_malloc()
+    nanomod.use_compile_cache()
     root = sys.argv[1] if len(sys.argv) > 1 else "/tmp/nanomod_scale"
     os.makedirs(root, exist_ok=True)
-    rng = np.random.default_rng(0)
-    genome_arr = rng.choice(np.frombuffer(b"ACGT", np.uint8), GENOME_LEN)
-    levels = [rng.normal(0.0, 1.0, GENOME_LEN), rng.normal(0.0, 1.0, GENOME_LEN)]
-    planted = sorted(rng.choice(GENOME_LEN - 100, N_SITES, replace=False) + 50)
+    genome_arr, levels, planted = scale_genome(0, GENOME_LEN, N_SITES)
 
     t0 = time.time()
     ctrl, case = os.path.join(root, "ctrl"), os.path.join(root, "case")
     if not os.path.isdir(ctrl):
-        gen_group(ctrl, genome_arr, levels, np.random.default_rng(1))
-        gen_group(case, genome_arr, levels, np.random.default_rng(2),
-                  planted=planted)
+        write_corrected_group(ctrl, CHROM, genome_arr, levels,
+                              np.random.default_rng(1), N_READS, READ_LEN)
+        write_corrected_group(case, CHROM, genome_arr, levels,
+                              np.random.default_rng(2), N_READS, READ_LEN,
+                              planted=planted, mod_delta=MOD_DELTA)
     t_gen = time.time() - t0
     print(f"[scale] generated 2x{N_READS} reads x {READ_LEN} bases "
           f"({2 * N_READS * READ_LEN / 1e6:.0f}M events) in {t_gen:.0f}s, "

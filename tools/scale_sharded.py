@@ -41,12 +41,12 @@ rank, nprocs, port, root, mode = (int(sys.argv[1]), int(sys.argv[2]),
 sys.path.insert(0, {repo!r})
 import jax
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join({repo!r}, ".jax_cache"))
+from nanomod import use_compile_cache
+use_compile_cache()
 jax.distributed.initialize(coordinator_address=f"127.0.0.1:{{port}}",
                            num_processes=nprocs, process_id=rank)
-from nanomod_tpu.config import DetectConfig, RankConfig
-from nanomod_tpu.detect import run_detect
+from nanomod.config import DetectConfig, RankConfig
+from nanomod.detect import run_detect
 cfg = DetectConfig(
     wrk_base1=os.path.join(root, "ctrl"),
     wrk_base2=os.path.join(root, "case"),
@@ -96,24 +96,20 @@ def run_mode(mode, root, port):
 
 
 def main():
+    from nanomod.harness.synth import scale_genome, write_corrected_group
     from tools import scale_run as sr
-    sr.GENOME_LEN = GENOME_LEN
-    sr.N_READS = N_READS
-    sr.READ_LEN = READ_LEN
 
     root = sys.argv[1] if len(sys.argv) > 1 else "/tmp/nanomod_scale_sharded"
     os.makedirs(root, exist_ok=True)
-    rng = np.random.default_rng(0)
-    genome_arr = rng.choice(np.frombuffer(b"ACGT", np.uint8), GENOME_LEN)
-    levels = [rng.normal(0.0, 1.0, GENOME_LEN),
-              rng.normal(0.0, 1.0, GENOME_LEN)]
-    planted = sorted(rng.choice(GENOME_LEN - 100, 20, replace=False) + 50)
+    genome_arr, levels, planted = scale_genome(0, GENOME_LEN, 20)
     ctrl, case = os.path.join(root, "ctrl"), os.path.join(root, "case")
     t0 = time.time()
     if not os.path.isdir(ctrl):
-        sr.gen_group(ctrl, genome_arr, levels, np.random.default_rng(1))
-        sr.gen_group(case, genome_arr, levels, np.random.default_rng(2),
-                     planted=planted)
+        write_corrected_group(ctrl, sr.CHROM, genome_arr, levels,
+                              np.random.default_rng(1), N_READS, READ_LEN)
+        write_corrected_group(case, sr.CHROM, genome_arr, levels,
+                              np.random.default_rng(2), N_READS, READ_LEN,
+                              planted=planted)
     print(f"[gen] 2x{N_READS} reads x {READ_LEN} "
           f"({2 * N_READS * READ_LEN / 1e6:.0f}M observations) "
           f"in {time.time() - t0:.0f}s", flush=True)
